@@ -1,18 +1,16 @@
-"""Triangle clusters: the TPU-native acceleration structure.
+"""Triangle clusters: the acceleration structure of the wavefront engine.
 
-A TPU is a dense vector machine: per-lane pointer chasing (the reference's
-per-thread BVH stack, ray_intersection.cpp:138-213) maps poorly onto it, so
-the wavefront engine replaces deep traversal with a shallow two-stage scheme:
+The wavefront engine (render/wavefront.py) replaces deep per-ray traversal
+with a shallow two-stage scheme that plain XLA can express:
 
 1. triangles — already spatially sorted by the SAH builder's depth-first leaf
    order — are chunked into fixed-size clusters of LEAF_SIZE consecutive
    triangles with precomputed AABBs;
-2. rays are culled against cluster AABBs densely (VPU-friendly, no gathers),
-   surviving (ray, cluster) pairs are compacted, and each pair intersects its
-   cluster's whole triangle block as one dense Möller-Trumbore batch.
+2. rays are culled against cluster AABBs densely (no gathers), and each ray
+   intersects the whole triangle blocks of its nearest overlapped clusters
+   as dense Möller-Trumbore batches.
 
-This trades ~2-4x more triangle tests for fully regular, gather-light compute
-— the right trade on TPU hardware.
+This trades more triangle tests for regular, gather-light compute.
 """
 
 from __future__ import annotations
@@ -23,24 +21,6 @@ import os
 import numpy as np
 
 DEFAULT_LEAF_SIZE = int(os.environ.get("RAYFINDER_LEAF", "128"))
-# Clusters per super-cluster in the grouped big-scene layout. The kernels
-# (ops/pallas_walk.py) import this so the scene-level super padding below and
-# the kernel DMA layout can never disagree.
-SUPER_GROUP = int(os.environ.get("RAYFINDER_SUPER_G", "128"))
-# Cluster count above which the kernels switch to the grouped big-scene
-# traversal (ops/pallas_walk imports this). The super padding below only
-# applies past the same threshold, so flat-path scenes never carry padding.
-BIG_CLUSTERS = int(os.environ.get("RAYFINDER_BIG_CLUSTERS", "512"))
-# Subtree-aligned super grouping (super_pad_clusters): "1" pads the cluster
-# list so each DMA'd super is a spatially tight subtree run instead of a
-# blind 128-chunk. Default OFF — measured on TPU (prof/diag_iters.py,
-# courtyard(26), 2026-08-18): tight supers help primaries' spurious entries
-# (inner/super 0.41 -> 0.11) but divergent bounce tiles union the whole
-# scene, so visits track the super COUNT (16 of 24 blind -> 52-65 of 67
-# tight) and inner iterations rise too (20.8 -> 33.9: per-lane front-to-back
-# fragments per super). Fewer/bigger supers win on enclosed scenes, not
-# more/tighter.
-SUPER_TREELET = os.environ.get("RAYFINDER_SUPER_TREELET", "0") == "1"
 
 
 @dataclasses.dataclass
@@ -82,10 +62,10 @@ def treelet_ranges(
     spatially DISJOINT, and unconditionally merging them (the round-1
     behavior) unions far-apart geometry into one fat AABB. Measured on
     courtyard(14) bounce rays (offline study, 2026-08-18): unconditional
-    merge C=777/fill 95/total SA 7776/per-lane needed clusters 3.58/sorted
-    tile max 9.16; SA-bounded (alpha=1) C=868/fill 85/SA 3935/need 0.83/tile
-    max 3.66 — a 2.5x iteration-count cut for +12% clusters. positions=None
-    falls back to NO merging (measured equivalent to alpha<=0.8).
+    merge C=777/fill 95/total SA 7776/per-lane needed clusters 3.58;
+    SA-bounded (alpha=1) C=868/fill 85/SA 3935/need 0.83 — far fewer
+    clusters entered per ray for +12% clusters. positions=None falls back to
+    NO merging.
     """
     tc = np.asarray(bvh.triangle_count, np.int64)
     off = np.asarray(bvh.triangles_offset, np.int64)
@@ -142,86 +122,6 @@ def treelet_ranges(
             cs, ce = s, e
     merged.append((cs, ce))
     return np.asarray(merged, np.int64)
-
-
-# Triangle budget per super subtree cut (super_runs_from_bvh). ~half of
-# group * typical cluster fill so runs rarely overflow `group` clusters.
-SUPER_TRIS = int(os.environ.get("RAYFINDER_SUPER_TRIS", "6144"))
-
-
-def super_runs_from_bvh(
-    bvh, cluster_start: np.ndarray, num_tris: int,
-    group: int = SUPER_GROUP, tri_budget: int = SUPER_TRIS,
-) -> np.ndarray:
-    """Cut the cluster list into super runs aligned to BVH subtree
-    boundaries — treelet_ranges one level up.
-
-    Motivation (measured, prof/diag_iters.py on courtyard(26), v5e
-    2026-08-18): with blind 128-cluster supers, a primary-ray tile visits
-    7.1 supers but runs only 2.9 cluster iterations — most visits are
-    spurious entries into fat unions of spatially disjoint subtrees, and
-    each visit pays a 590KB DMA + a 128-row entry build + selection syncs.
-    (A greedy SA-bounded run merge does NOT fix this: adjacent leaf-order
-    cluster AABBs are coherent, so union SA <= sum-of-parts almost always
-    holds and runs fill to `group` — blind chunks again. Subtree cuts are
-    the structure that made clusters tight.)
-
-    Subtree cuts of <= tri_budget triangles come from treelet_ranges (no
-    merging); each cluster joins the cut containing its start triangle, and
-    any run longer than `group` clusters is split. Returns (S, 2) int64
-    [start, end) cluster-index runs covering every cluster.
-    """
-    cuts = treelet_ranges(bvh, tri_budget, positions=None)
-    # Assign each cluster to the cut containing its start. Cuts partition
-    # [0, num_tris) in order, so assignments are monotone and runs are
-    # contiguous. (A treelet-merged cluster can straddle a cut boundary;
-    # start-containment keeps the partition well defined regardless.)
-    cut_id = np.searchsorted(cuts[:, 0], cluster_start, side="right") - 1
-    change = np.nonzero(np.diff(cut_id))[0] + 1
-    bounds = np.concatenate([[0], change, [cluster_start.shape[0]]])
-    runs = []
-    for s, e in zip(bounds[:-1], bounds[1:]):
-        for k in range(int(s), int(e), group):
-            runs.append((k, min(k + group, int(e))))
-    return np.asarray(runs, np.int64)
-
-
-def super_pad_clusters(cs: ClusterSet, bvh, num_tris: int,
-                       group: int = SUPER_GROUP) -> ClusterSet:
-    """Re-lay out a ClusterSet so each subtree-aligned super run occupies
-    exactly `group` cluster slots, padded with degenerate clusters (zero
-    triangles — Möller-Trumbore rejects them — and far-away AABBs the slab
-    test can never accept). The grouped kernel layout
-    (ops/pallas_walk._scene_tables_grouped) then reshapes into EXACTLY these
-    supers with no kernel changes."""
-    C = cs.num_clusters
-    if C <= BIG_CLUSTERS:
-        # Flat-sweep scenes: padding would only add degenerate selection rows.
-        return cs
-    runs = super_runs_from_bvh(bvh, cs.start, num_tris, group)
-    S = runs.shape[0]
-    L = cs.leaf_size
-    tris = np.zeros((S * group, L, 3, 3), np.float32)
-    aabb_min = np.full((S * group, 3), np.float32(1e30))
-    aabb_max = np.full((S * group, 3), np.float32(1e30))
-    tri_map = np.zeros((S * group, L), np.int32)
-    start = np.zeros((S * group,), np.int32)
-    src_map = cs.tri_map.reshape(C, L)
-    for s, (c0, c1) in enumerate(runs):
-        dst = s * group
-        cnt = c1 - c0
-        tris[dst:dst + cnt] = cs.tris[c0:c1]
-        aabb_min[dst:dst + cnt] = cs.aabb_min[c0:c1]
-        aabb_max[dst:dst + cnt] = cs.aabb_max[c0:c1]
-        tri_map[dst:dst + cnt] = src_map[c0:c1]
-        start[dst:dst + cnt] = cs.start[c0:c1]
-    return ClusterSet(
-        tris=tris,
-        aabb_min=aabb_min,
-        aabb_max=aabb_max,
-        tri_map=tri_map.reshape(-1),
-        start=start,
-    )
 
 
 def build_clusters(

@@ -3,47 +3,28 @@
 The Python builder (build.py) is the semantic reference; the native builder
 produces identical topology (asserted in tests/test_native_bvh.py) and is
 ~50-100x faster, which matters for Sponza-scale scenes (262K triangles). The
-shared library is compiled on first use with g++ -O3 -ffp-contract=off (the
+shared library is compiled at first use with g++ -O3 -ffp-contract=off (the
 contract flag keeps float rounding identical to numpy — no FMA contraction)
-and cached next to the source.
+into native/build/, keyed on a hash of source, compiler and flags
+(utils/native_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import pathlib
 import subprocess
 import threading
 
 import numpy as np
 
+from ..utils.native_build import NATIVE_DIR, build_library
 from .build import Bvh
 
-_NATIVE_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "native"
-_SOURCE = _NATIVE_DIR / "bvh_builder.cpp"
-_LIB = _NATIVE_DIR / "build" / "libbvh_builder.so"
+_SOURCE = NATIVE_DIR / "bvh_builder.cpp"
+_COMMAND = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off"]
 
 _lock = threading.Lock()
 _lib = None
-
-
-def _compile() -> None:
-    _LIB.parent.mkdir(parents=True, exist_ok=True)
-    subprocess.run(
-        [
-            "g++",
-            "-O3",
-            "-std=c++17",
-            "-shared",
-            "-fPIC",
-            "-ffp-contract=off",
-            str(_SOURCE),
-            "-o",
-            str(_LIB),
-        ],
-        check=True,
-        capture_output=True,
-    )
 
 
 def _load():
@@ -51,9 +32,7 @@ def _load():
     with _lock:
         if _lib is not None:
             return _lib
-        if not _LIB.exists() or _LIB.stat().st_mtime < _SOURCE.stat().st_mtime:
-            _compile()
-        lib = ctypes.CDLL(str(_LIB))
+        lib = ctypes.CDLL(str(build_library("bvh_builder", [_SOURCE], [_SOURCE], _COMMAND)))
         lib.rf_build_bvh.restype = ctypes.c_int64
         lib.rf_build_bvh.argtypes = [
             ctypes.POINTER(ctypes.c_float),
@@ -74,7 +53,7 @@ def native_available() -> bool:
     try:
         _load()
         return True
-    except (OSError, subprocess.CalledProcessError):
+    except (OSError, RuntimeError, subprocess.CalledProcessError):
         return False
 
 

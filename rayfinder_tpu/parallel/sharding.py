@@ -6,7 +6,7 @@ multi-chip design: a 2D `jax.sharding.Mesh` with
 * a **tiles** axis — pixels are sharded across devices (data parallelism over
   the framebuffer; zero communication), and
 * a **samples** axis — each device traces a subset of the frame's samples for
-  its pixel shard and the partial radiances are summed with a `psum` over ICI
+  its pixel shard and the partial radiances are summed with a `psum`
   (sample parallelism; one small all-reduce per step).
 
 The scene, sky state, camera, and blue-noise tile are replicated; the
@@ -24,17 +24,8 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:  # jax >= 0.7 exports shard_map at the top level
-    from jax import shard_map
-
-    _VMA_KWARG = "check_vma"
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-
-    _VMA_KWARG = "check_rep"  # pre-0.7 name for the same checker
-
 from ..render.camera import Camera, generate_camera_ray_lens
-from ..render.pathtracer import trace_radiance
+from ..render.pathtracer import DEFAULT_ENGINE, trace_radiance
 from ..render.rng import animated_blue_noise
 from ..render.scene import DeviceScene
 from ..sky.model import SkyState
@@ -73,7 +64,7 @@ def render_step_sharded(
     height: int,
     num_bounces: int,
     spp: int,
-    engine: str = "wavefront",
+    engine: str = DEFAULT_ENGINE,
 ):
     """One sharded progressive step: adds `samples_axis` samples per pixel.
 
@@ -110,20 +101,15 @@ def render_step_sharded(
         radiance = trace_radiance(
             scene, sky, origin, direction, noise, num_bounces, engine
         )
-        # Sum this step's samples over the samples axis (ICI all-reduce).
+        # Sum this step's samples over the samples axis (all-reduce).
         total = jax.lax.psum(radiance, "samples")
         return accum_shard + total
 
-    # Pallas calls can't annotate their outputs' varying mesh axes
-    # (jax.ShapeDtypeStruct vma), so the vma checker must be off for the
-    # pallas engine; the XLA engines keep it on (render/traverse.py derives
-    # its while_loop carries from sharded inputs to satisfy it).
-    return shard_map(
+    return jax.shard_map(
         local_step,
         mesh=mesh,
         in_specs=(P("tiles"), P("tiles"), P("tiles")),
         out_specs=P("tiles"),
-        **{_VMA_KWARG: engine != "pallas"},
     )(accum, ys, xs)
 
 
@@ -149,18 +135,18 @@ def render_step_sharded_regen(
     num_bounces: int,
     spp: int,
     num_frames: int,
-    engine: str = "pallas",
+    engine: str = DEFAULT_ENGINE,
 ):
-    """Sharded persistent-wavefront step: every chip runs the SAME fused
-    regen pipeline as a single chip (render/pathtracer.accumulate_lanes_regen
-    — path regeneration, phased compaction, the persistent Pallas path
-    kernel) over its pixel shard, tracing num_frames/samples_axis consecutive
-    samples; the samples axis then psums partial radiance over ICI.
+    """Sharded persistent-wavefront step: every device runs the SAME regen
+    pipeline as a single device (render/pathtracer.accumulate_lanes_regen —
+    path regeneration and phased compaction) over its pixel shard, tracing
+    num_frames/samples_axis consecutive samples; the samples axis then psums
+    partial radiance.
 
     Pixels ride in BLOCK-MAJOR order (render/tiling.block_order) so each
-    shard holds whole 32x16 pixel blocks and the ray-tile coherence that the
-    traversal kernels depend on survives sharding; unswizzle once at image
-    assembly. accum: (P_padded, 3) block-ordered, sharded over tiles.
+    shard holds whole 32x16 pixel blocks and ray coherence survives
+    sharding; unswizzle once at image assembly. accum: (P_padded, 3)
+    block-ordered, sharded over tiles.
 
     Per-pixel f32 grouping: each device's partial starts from zero and the
     psum adds device partials in a fixed order, so multi-chip sums can
@@ -197,12 +183,11 @@ def render_step_sharded_regen(
         )
         return accum_shard + jax.lax.psum(partial_r, "samples")
 
-    return shard_map(
+    return jax.shard_map(
         local_step,
         mesh=mesh,
         in_specs=(P("tiles"), P("tiles"), P("tiles"), P("tiles")),
         out_specs=P("tiles"),
-        **{_VMA_KWARG: engine != "pallas"},
     )(accum, u_full, v_full, nb_full)
 
 
@@ -217,11 +202,11 @@ def render_image_sharded_regen(
     spp: int,
     num_bounces: int,
     exposure: float = 1.0,
-    engine: str = "pallas",
+    engine: str = DEFAULT_ENGINE,
     samples_per_dispatch: int | None = None,
 ) -> np.ndarray:
-    """Full sharded render on the FAST path: each step runs the fused regen
-    pipeline per chip (render_step_sharded_regen). Returns (H, W, 3)."""
+    """Full sharded render on the FAST path: each step runs the regen
+    pipeline per device (render_step_sharded_regen). Returns (H, W, 3)."""
     from ..render.rng import blue_noise_tile
     from ..render.tiling import unswizzle
     from ..render.tonemap import tonemap
@@ -262,7 +247,7 @@ def render_image_sharded(
     spp: int,
     num_bounces: int,
     exposure: float = 1.0,
-    engine: str = "wavefront",
+    engine: str = DEFAULT_ENGINE,
 ) -> np.ndarray:
     """Full sharded render: progressive steps of `samples_axis` samples,
     running-mean estimator, ACES tonemap. Returns (H, W, 3) float32."""

@@ -1,9 +1,9 @@
 """Device-resident scene: SoA jnp arrays consumed by the render kernels.
 
-The TPU analog of the reference's scene bind group
+The analog of the reference's scene bind group
 (src/pt/reference_path_tracer.cpp:131-270): BVH nodes, triangle attribute
 arrays in BVH leaf order, a texture-descriptor table, and one packed texel
-atlas. All arrays are static-shaped device buffers in HBM.
+atlas. All arrays are static-shaped device buffers.
 """
 
 from __future__ import annotations
@@ -37,6 +37,8 @@ class DeviceScene:
     bvh_second_child: Any  # (N,) i32
     bvh_tri_count: Any  # (N,) i32
     bvh_split_axis: Any  # (N,) i32 (leaf nodes hold an arbitrary valid axis)
+    # The same nodes packed once for the walk engine (ops/walk.pack_nodes).
+    bvh_nodes: Any  # (N, 8) f32, 32-byte nodes
 
     # Triangle attributes (reference_path_tracer.wgsl:133-149)
     tri_positions: Any  # (T, 3, 3) f32
@@ -51,7 +53,7 @@ class DeviceScene:
     tex_desc: Any  # (K, 3) i32 packed [width, height, offset] descriptor rows
     texels: Any  # (P,) uint32 packed BGRA
 
-    # Triangle clusters for the TPU wavefront engine (bvh/clusters.py).
+    # Triangle clusters for the wavefront engine (bvh/clusters.py).
     # Clusters are BVH-treelet-aligned leaf-order ranges (tight AABBs).
     cluster_tris: Any  # (C, L, 3, 3) f32 padded blocks
     cluster_min: Any  # (C, 3) f32
@@ -84,7 +86,8 @@ def build_device_scene(
         from ..bvh.native import build_bvh_fast
 
         bvh = build_bvh_fast(flat.positions)
-    from ..bvh.clusters import build_clusters
+    from ..bvh.clusters import DEFAULT_LEAF_SIZE, build_clusters, treelet_ranges
+    from ..ops.walk import pack_nodes
 
     positions = reorder_attributes(flat.positions, bvh.triangle_indices)
     normals = reorder_attributes(flat.normals, bvh.triangle_indices)
@@ -115,17 +118,9 @@ def build_device_scene(
         # Default white texel: BGRA 0xFFFFFFFF.
         texels = np.asarray([0xFFFFFFFF], dtype=np.uint32)
 
-    from ..bvh.clusters import (
-        DEFAULT_LEAF_SIZE, SUPER_TREELET, super_pad_clusters, treelet_ranges,
-    )
-
     clusters = build_clusters(
         positions, ranges=treelet_ranges(bvh, DEFAULT_LEAF_SIZE, positions)
     )
-    if SUPER_TREELET:
-        # Subtree-aligned super runs (big scenes only). See
-        # bvh/clusters.super_runs_from_bvh.
-        clusters = super_pad_clusters(clusters, bvh, positions.shape[0])
 
     num_tris = positions.shape[0]
     tri_attrs = np.empty((num_tris, 25), dtype=np.float32)
@@ -142,6 +137,12 @@ def build_device_scene(
         bvh_tri_count=jnp.asarray(bvh.triangle_count.astype(np.int32)),
         bvh_split_axis=jnp.asarray(
             np.where(bvh.triangle_count > 0, 0, bvh.split_axis).astype(np.int32)
+        ),
+        bvh_nodes=jnp.asarray(
+            pack_nodes(
+                bvh.aabb_min, bvh.aabb_max, bvh.triangles_offset,
+                bvh.second_child_offset, bvh.triangle_count, bvh.split_axis,
+            )
         ),
         tri_positions=jnp.asarray(positions),
         tri_normals=jnp.asarray(normals),

@@ -1,20 +1,15 @@
 """Pixel swizzling: hierarchical block-major ray order for traversal
 coherence.
 
-The traversal engines prune work per TILE-ray tile; rays laid out in image
-row-major order make a tile span a whole framebuffer row, whose frustum
-overlaps many clusters. Swizzling pixels into near-square blocks (exactly
-one Pallas tile per block) tightens each tile's spatial footprint, so the
-block-uniform pruning skips far more geometry.
+Rays laid out in image row-major order put a whole framebuffer row next to
+each other; neighbouring lanes then trace rays whose frusta overlap much of
+the scene. Swizzling pixels into near-square blocks keeps neighbouring lanes
+on neighbouring pixels, so lanes that run together (a warp, a wavefront
+chunk) visit much the same geometry.
 
-The order is TWO-LEVEL because different passes want different tile sizes
-(measured on v5e, Duck 64spp): the full-width primary/sky phase is
-sync-bound and wants 512-lane tiles, while the compacted bounce phases are
-divergence-bound and want 128-lane tiles. Pixels are laid out as 32x16
-blocks (one 512-lane tile each) whose interiors are four 16x8 sub-blocks
-(one 128-lane tile each) — so BOTH tile sizes land on compact near-square
-footprints. Larger tiles (1024+) see pairs of adjacent blocks; smaller
-(64) see 8x8 halves of a sub-block.
+The order is TWO-LEVEL: pixels are laid out as 32x16 blocks whose interiors
+are four 16x8 sub-blocks, so groups of 512 and of 128 lanes both land on
+compact near-square footprints.
 
 The permutation is static per framebuffer size: the path tracer generates
 rays, shades, and accumulates entirely in block order and unswizzles once
@@ -35,7 +30,6 @@ SUB_H = int(os.environ.get("RAYFINDER_BLOCK_H", "8"))
 _SUBDIV = 2
 BLOCK_W = SUB_W * _SUBDIV
 BLOCK_H = SUB_H * _SUBDIV
-# Backwards-compat aliases used by docs/tests: the fine-tile block shape.
 
 
 def _span_order(x0: int, y0: int, w: int, h: int):

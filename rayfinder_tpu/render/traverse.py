@@ -2,9 +2,9 @@
 
 The reference traverses its flattened BVH with a per-thread 32-deep stack and
 near-child-first ordering (src/common/ray_intersection.cpp:138-213,
-src/pt/reference_path_tracer.wgsl:370-429). A TPU is a vector machine with no
-per-lane control flow, so the traversal is reformulated as a lockstep
-"if-if" loop over a whole ray batch inside one `lax.while_loop`:
+src/pt/reference_path_tracer.wgsl:370-429). Plain jnp has no per-lane control
+flow, so here the traversal is reformulated as a lockstep "if-if" loop over
+a whole ray batch inside one `lax.while_loop`:
 
 * every iteration, each active lane performs exactly one unit of work — either
   one AABB/node step or one triangle test from its current leaf scan range;
@@ -15,7 +15,7 @@ per-lane control flow, so the traversal is reformulated as a lockstep
 Visit order per lane is identical to the reference's (near child first via
 `split_axis` + direction sign, leaf triangles in order), so per-ray
 `nodes_visited` matches the CPU tool's heatmap exactly. This module is the
-correctness reference; the Pallas kernel in ops/ is the performance path.
+correctness reference; the per-ray walk in ops/walk.py is the fast path.
 """
 
 from __future__ import annotations

@@ -1,23 +1,22 @@
-"""TPU wavefront traversal: chunked cull → top-k near-first cluster walk.
+"""Wavefront traversal in plain XLA: chunked cull → top-k near-first
+cluster walk.
 
-The performance replacement for the lockstep per-ray stack traversal
-(traverse.py). Semantics are identical to the reference's closest-hit /
-any-hit queries (src/pt/reference_path_tracer.wgsl:321-429) — both compute
-exact minima over the same accepted triangle set — but the computation is
-reorganized for a dense vector machine:
+An XLA alternative to the per-ray stack walk (traverse.py, ops/walk.py),
+made only of dense array operations. Semantics are identical to the
+reference's closest-hit / any-hit queries
+(src/pt/reference_path_tracer.wgsl:321-429) — both compute exact minima over
+the same accepted triangle set — but the computation is reorganized:
 
 1. **Cull** (per ray chunk): every ray is slab-tested against every cluster
-   AABB — elementwise VPU work over a (K, C) grid, no gathers.
+   AABB — elementwise work over a (K, C) grid, no gathers.
 2. **Order**: `lax.top_k` sorts each ray's overlapped clusters by entry
-   distance. This is the TPU analog of the reference's near-child-first stack
-   ordering (wgsl:408-418) and enables the same pruning: once a hit is found
-   closer than the next cluster's entry t, the lane is done.
+   distance. This is the dense analog of the reference's near-child-first
+   stack ordering (wgsl:408-418) and enables the same pruning: once a hit is
+   found closer than the next cluster's entry t, the lane is done.
 3. **Walk**: a short `while_loop` over cluster slots; in step m every lane
    intersects its m-th nearest cluster's whole (L, 3, 3) triangle block with
-   dense Möller-Trumbore (blocks fetched with chunky row gathers — measured
-   as fast as a one-hot MXU matmul on v5e, and exact).
-4. No scatters anywhere: reductions stay lane-aligned, which keeps both
-   compile time and runtime sane on TPU.
+   dense Möller-Trumbore (blocks fetched with exact row gathers).
+4. No scatters in the walk: reductions stay lane-aligned.
 
 Capacity overflow is HANDLED, not just reported: a ray overlapping more than
 MAX_CLUSTERS_PER_RAY cluster AABBs is only *provably* resolved when its best
@@ -26,8 +25,9 @@ later, and a triangle hit can never be nearer than its cluster's entry t).
 Rays that fail that proof are re-walked at FULL cluster capacity (no
 overflow possible) in compacted sub-batches (_escalate) — results are exact
 for every ray. The returned `overflow` count is the number of escalated
-rays, kept for observability (tests/test_wavefront.py pins it to 0 on Duck
-and exercises the escalation on an enclosed many-cluster scene).
+rays, kept for observability (tests/test_wavefront.py pins it to 0 on the
+small open scene and exercises the escalation on an enclosed many-cluster
+scene).
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ import jax.numpy as jnp
 from .intersect import ray_triangle
 from .scene import DeviceScene
 
-RAY_CHUNK = 65536  # rays traversed per chunk (bounds VMEM/HBM temporaries)
+RAY_CHUNK = 65536  # rays traversed per chunk (bounds device temporaries)
 MAX_CLUSTERS_PER_RAY = 32  # top-k capacity per ray
 _MAX_CULL_ENTRIES = 32 * 1024 * 1024  # cap on the (chunk, C) cull grid
 _ESC_CHUNK = 1024  # unresolved-overflow rays re-walked per escalation step
@@ -80,12 +80,9 @@ def _slab_entry(origin, inv_dir, dir_neg, aabb_min, aabb_max, t_max):
 
 
 def _gather_cluster_blocks(scene: DeviceScene, cid):
-    """(K,) cluster ids -> (K, L, 3, 3) triangle blocks.
-
-    Per-id slices are 2.3KB, chunky enough that XLA's TPU gather streams them
-    at the same rate as a one-hot MXU matmul (measured equal on v5e); plain
-    take is exact and simpler. (A one-hot matmul at default precision is NOT
-    exact here — this platform lowers f32 matmul to single-pass bf16.)"""
+    """(K,) cluster ids -> (K, L, 3, 3) triangle blocks by a plain take,
+    which is exact (a one-hot matrix product would round in TF32 or bf16
+    at default precision)."""
     return scene.cluster_tris[cid]
 
 
@@ -260,7 +257,7 @@ def intersect_closest_wavefront(
     Results are EXACT for every ray: overflowed rays whose best hit is not
     provably nearer than every dropped cluster (best_t <= last kept entry)
     are re-walked at full cluster capacity (_escalate). escalated_count
-    reports how many rays needed that (observability; 0 on Duck-class
+    reports how many rays needed that (observability; 0 on small open
     scenes)."""
     num_rays = origin.shape[0]
     num_clusters = scene.cluster_tris.shape[0]

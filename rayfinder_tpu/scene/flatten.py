@@ -3,7 +3,7 @@
 Equivalent of the reference's FlattenedModel (src/common/flattened_model.cpp:8-46):
 every indexed mesh is unrolled into per-triangle vertex attribute arrays, the
 input to the BVH builder and the wavefront renderer. Arrays are SoA numpy,
-already in the layout the TPU kernels consume.
+already in the layout the render modules consume.
 """
 
 from __future__ import annotations

@@ -1,16 +1,19 @@
-"""Procedural test scenes.
+"""Procedural scenes, generated from seeds so nothing is downloaded.
 
-Sponza.glb is not shipped with the reference checkout (assets/README.md lists
-it, but only Duck.glb is present), so large-scene benchmarks use a procedural
-courtyard with Sponza-like structure: a floor, four walls, two rows of
-columns, and scattered boxes — real occlusion, many triangles via quad
-subdivision, and several distinct base-color materials.
+* `courtyard_scene`: the large enclosed scene with Sponza-like structure — a
+  floor, four walls, two rows of columns, and scattered boxes — real
+  occlusion, many triangles via quad subdivision, and several distinct
+  base-color materials.
+* `small_open_scene`: a small open scene at the scale of a single glTF
+  model (about 4K triangles, one PNG texture) where sky misses dominate:
+  a noise-displaced blob on a small ground tile.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..utils.image import encode_png
 from .flatten import FlattenedScene
 from .texture import Texture
 
@@ -166,14 +169,8 @@ def courtyard_textures() -> list[Texture]:
 def _png_texture(rgb: np.ndarray) -> "Texture":
     """(h, w, 3) float RGB -> PNG bytes -> Texture.from_memory: exercises the
     real image-decode path (stbi analog) instead of packing arrays directly."""
-    import io
-
-    from PIL import Image
-
     u8 = np.clip(rgb * 255.0 + 0.5, 0, 255).astype(np.uint8)
-    buf = io.BytesIO()
-    Image.fromarray(u8).save(buf, format="PNG")
-    return Texture.from_memory(buf.getvalue())
+    return Texture.from_memory(encode_png(u8))
 
 
 def _value_noise(size: int, cells: int, seed: int) -> np.ndarray:
@@ -230,4 +227,92 @@ def _wood_rgb(size: int, light, dark, seed: int) -> np.ndarray:
     rgb = np.asarray(light) * grain[..., None] + np.asarray(dark) * (1 - grain)[..., None]
     return rgb
 
+
+def small_open_scene(seed: int = 0):
+    """Build (FlattenedScene, [texture]) for the small open scene: a smooth
+    blob of radius ~0.75 centred at (0, 0.8, 0), its surface displaced by a
+    few seeded low-frequency waves, standing on a 2.4 x 2.4 ground tile at
+    y = 0 (turned 0.3 rad about y). 4096 triangles, smooth per-vertex normals and one 256 x 256 PNG
+    texture shared by both parts."""
+    rng = np.random.default_rng(seed)
+    n_lon, n_lat = 64, 32
+    theta = np.linspace(0.0, np.pi, n_lat + 1)  # pole to pole
+    phi = np.linspace(0.0, 2.0 * np.pi, n_lon + 1)  # seam column repeated
+    th, ph = np.meshgrid(theta, phi, indexing="ij")  # (n_lat+1, n_lon+1)
+    radius = np.ones_like(th)
+    for _ in range(4):
+        a = rng.uniform(0.03, 0.08)
+        n, m = rng.integers(1, 4), rng.integers(1, 5)
+        radius += a * np.sin(n * th + rng.uniform(0, np.pi)) * np.cos(
+            m * ph + rng.uniform(0, 2 * np.pi)
+        )
+    radius *= 0.75
+    grid = np.stack(
+        [radius * np.sin(th) * np.cos(ph), 0.8 + radius * np.cos(th),
+         radius * np.sin(th) * np.sin(ph)],
+        axis=-1,
+    )
+    grid[0, :] = grid[0, 0]  # single pole vertices
+    grid[-1, :] = grid[-1, 0]
+    grid[:, -1] = grid[:, 0]  # close the seam exactly
+    uv_grid = np.stack(np.meshgrid(phi / (2 * np.pi), theta / np.pi, indexing="xy"), -1)
+
+    # Vertex normals: area-weighted face normals accumulated per vertex.
+    flat_idx = np.arange(grid.shape[0] * grid.shape[1]).reshape(grid.shape[:2])
+    quads = []
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a, b = flat_idx[i, j], flat_idx[i, j + 1]
+            c, d = flat_idx[i + 1, j], flat_idx[i + 1, j + 1]
+            # Counter-clockwise seen from outside: cross(e1, e2) points out.
+            if i > 0:
+                quads.append((a, b, c))
+            if i < n_lat - 1:
+                quads.append((b, d, c))
+    corners = np.asarray(quads)
+    verts = grid.reshape(-1, 3)
+    face_n = np.cross(verts[corners[:, 1]] - verts[corners[:, 0]],
+                      verts[corners[:, 2]] - verts[corners[:, 0]])
+    # Identical positions (poles, seam) share one normal: key by position.
+    _, key = np.unique(np.round(verts, 6), axis=0, return_inverse=True)
+    key = key.reshape(-1)
+    acc = np.zeros((key.max() + 1, 3))
+    for k in range(3):
+        np.add.at(acc, key[corners[:, k]], face_n)
+    vn = acc[key] / np.linalg.norm(acc[key], axis=-1, keepdims=True)
+
+    blob_pos = verts[corners]
+    blob_nrm = vn[corners]
+    blob_uv = uv_grid.reshape(-1, 2)[corners] * np.asarray([4.0, 2.0])
+
+    ground = _subdivided_quad([-1.2, 0.0, -1.2], [0.0, 0.0, 2.4], [2.4, 0.0, 0.0], 8)
+    ground_nrm = np.broadcast_to(np.asarray([0.0, 1.0, 0.0]), ground.shape)
+    ground_uv = (ground[:, :, [0, 2]] + 1.2) / 2.4
+
+    # Turn the scene about y so that no grid line of vertices lies in an
+    # axis or diagonal plane: cameras on those planes would otherwise send
+    # rays exactly along triangle edges.
+    c, s = np.cos(0.3), np.sin(0.3)
+    turn = np.asarray([[c, 0.0, -s], [0.0, 1.0, 0.0], [s, 0.0, c]])
+    flat = FlattenedScene(
+        positions=(np.concatenate([blob_pos, ground]) @ turn).astype(np.float32),
+        normals=(np.concatenate([blob_nrm, ground_nrm]) @ turn).astype(np.float32),
+        tex_coords=np.concatenate([blob_uv, ground_uv]).astype(np.float32),
+        texture_indices=np.zeros(blob_pos.shape[0] + ground.shape[0], np.uint32),
+    )
+    spots = _value_noise(256, 8, seed=seed + 300)
+    grain = _value_noise(256, 32, seed=seed + 301)
+    base = np.asarray([0.9, 0.72, 0.18]) * (0.75 + 0.25 * grain)[..., None]
+    dark = np.asarray([0.35, 0.22, 0.1])
+    rgb = np.where((spots > 0.62)[..., None], dark, base)
+    return flat, [_png_texture(rgb)]
+
+
+def write_small_open_glb(path, seed: int = 0):
+    """Write small_open_scene(seed) as a GLB at `path`; returns the path."""
+    from ..tools.export_glb import export_flattened_glb
+
+    flat, textures = small_open_scene(seed)
+    export_flattened_glb(flat, textures, path)
+    return path
 

@@ -14,6 +14,8 @@ import io
 
 import numpy as np
 
+from ..utils.image import PNG_SIGNATURE, decode_png
+
 
 @dataclasses.dataclass(frozen=True)
 class Texture:
@@ -37,11 +39,16 @@ class Texture:
         Matches Texture::fromMemory (src/common/texture.cpp:12-54): output is
         always 4-channel with alpha forced to 255 (stb fills alpha for 3-channel
         sources; the reference then overwrites alpha with 255 for all sources).
+        PNGs go through the built-in decoder (utils/image.decode_png); only
+        other formats, such as JPEG, need Pillow.
         """
-        from PIL import Image
-
-        img = Image.open(io.BytesIO(data)).convert("RGBA")
-        rgba = np.asarray(img, dtype=np.uint32)  # (h, w, 4)
+        if data[:8] == PNG_SIGNATURE:
+            rgba = decode_png(data)
+            if rgba.shape[2] <= 2:  # grey (+alpha): replicate into RGB
+                rgba = np.repeat(rgba[:, :, :1], 3, axis=2)
+        else:
+            rgba = _decode_with_pillow(data)
+        rgba = rgba.astype(np.uint32)
         h, w = rgba.shape[:2]
         r, g, b = rgba[..., 0], rgba[..., 1], rgba[..., 2]
         bgra = b | (g << np.uint32(8)) | (r << np.uint32(16)) | np.uint32(255 << 24)
@@ -62,3 +69,15 @@ class Texture:
         r = (px >> np.uint32(16)) & np.uint32(0xFF)
         a = (px >> np.uint32(24)) & np.uint32(0xFF)
         return np.stack([r, g, b, a], axis=-1).astype(np.uint8)
+
+
+def _decode_with_pillow(data: bytes) -> np.ndarray:
+    """Non-PNG image bytes -> (H, W, 4) uint8 RGBA through Pillow."""
+    try:
+        from PIL import Image
+    except ImportError as e:
+        raise ImportError(
+            "decoding a non-PNG texture (for example JPEG) needs Pillow, "
+            "which is not installed; convert the texture to PNG or install Pillow"
+        ) from e
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"), dtype=np.uint8)

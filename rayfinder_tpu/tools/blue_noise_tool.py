@@ -14,11 +14,11 @@ import sys
 
 import numpy as np
 
+from ..utils.image import read_png
+
 
 def bake_png(png_path, out_path) -> None:
-    from PIL import Image
-
-    img = np.asarray(Image.open(png_path))
+    img = read_png(png_path)
     assert img.ndim == 3 and img.shape[2] >= 2, "need an RG(BA) texture"
     tile = img[:, :, :2].astype(np.uint8)
     np.savez_compressed(out_path, tile=tile)

@@ -16,11 +16,12 @@ texture), so triangle order round-trips deterministically.
 
 from __future__ import annotations
 
-import io
 import json
 import struct
 
 import numpy as np
+
+from ..utils.image import encode_png
 
 _GLB_MAGIC = 0x46546C67
 _CHUNK_JSON = 0x4E4F534A
@@ -28,17 +29,7 @@ _CHUNK_BIN = 0x004E4942
 
 
 def _texture_png(texture) -> bytes:
-    from PIL import Image
-
-    bgra = texture.pixels.reshape(texture.height, texture.width)
-    b = (bgra & 0xFF).astype(np.uint8)
-    g = ((bgra >> 8) & 0xFF).astype(np.uint8)
-    r = ((bgra >> 16) & 0xFF).astype(np.uint8)
-    a = ((bgra >> 24) & 0xFF).astype(np.uint8)
-    img = np.stack([r, g, b, a], axis=-1)
-    buf = io.BytesIO()
-    Image.fromarray(img, "RGBA").save(buf, format="PNG")
-    return buf.getvalue()
+    return encode_png(texture.to_rgba())
 
 
 def export_flattened_glb(flat, textures, path) -> None:
@@ -131,6 +122,22 @@ def export_flattened_glb(flat, textures, path) -> None:
     out += struct.pack("<II", len(blob), _CHUNK_BIN) + blob
     with open(path, "wb") as f:
         f.write(out)
+
+
+def device_scene_via_pt(flat, textures, directory):
+    """Load a scene through the production asset path: export a GLB into
+    `directory`, pack it into a .pt file (gltf loader + BVH build) and
+    upload that file as a DeviceScene — the reference's gltf -> pt-format-tool
+    -> pt flow."""
+    import pathlib
+
+    from ..io import PtScene, read_pt, write_pt
+
+    glb = pathlib.Path(directory) / "scene.glb"
+    pt = pathlib.Path(directory) / "scene.pt"
+    export_flattened_glb(flat, textures, glb)
+    write_pt(PtScene.from_gltf(glb), pt)
+    return read_pt(pt).to_device_scene()
 
 
 def main() -> None:

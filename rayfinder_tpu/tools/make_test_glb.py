@@ -1,12 +1,11 @@
 """Deterministic multi-mesh, multi-texture GLB generator for loader tests.
 
-The reference checkout ships only Duck.glb (one mesh, one texture, trivial
-hierarchy), so the Sponza-class code paths of the loader — node-hierarchy
-TRS chains with inverse-transpose normal matrices
-(reference: src/common/gltf_model.cpp:29-72), texture dedup across many
-materials incl. FNV-1a factor hashing (gltf_model.cpp:143-263), and
-texture-sorted mesh output (gltf_model.cpp:462-464) — had never been fed
-input that exercises them. This tool emits a GLB that does:
+A single-mesh, single-texture asset never reaches the Sponza-class code
+paths of the loader — node-hierarchy TRS chains with inverse-transpose
+normal matrices (reference: src/common/gltf_model.cpp:29-72), texture dedup
+across many materials incl. FNV-1a factor hashing
+(gltf_model.cpp:143-263), and texture-sorted mesh output
+(gltf_model.cpp:462-464). This tool emits a GLB that does:
 
 * 10 meshes under a >= 3-deep TRS node hierarchy, several with NON-UNIFORM
   scales (the inverse-transpose normal-matrix path matters);
@@ -24,12 +23,13 @@ Usage: python -m rayfinder_tpu.tools.make_test_glb out.glb
 
 from __future__ import annotations
 
-import io
 import json
 import struct
 import sys
 
 import numpy as np
+
+from ..utils.image import encode_png
 
 _GLB_MAGIC = 0x46546C67
 _CHUNK_JSON = 0x4E4F534A
@@ -38,18 +38,13 @@ _CHUNK_BIN = 0x004E4942
 
 def _png_bytes(size: tuple[int, int], seed: int) -> bytes:
     """A small deterministic RGBA PNG with a per-seed pattern."""
-    from PIL import Image
-
     w, h = size
     yy, xx = np.mgrid[0:h, 0:w]
     r = ((xx * (seed + 3) * 29 + yy * 7) % 256).astype(np.uint8)
     g = ((yy * (seed + 5) * 13 + xx * 11) % 256).astype(np.uint8)
     b = ((xx * yy + seed * 37) % 256).astype(np.uint8)
     a = np.full((h, w), 255, np.uint8)
-    img = np.stack([r, g, b, a], axis=-1)
-    buf = io.BytesIO()
-    Image.fromarray(img, "RGBA").save(buf, format="PNG")
-    return buf.getvalue()
+    return encode_png(np.stack([r, g, b, a], axis=-1))
 
 
 def _box() -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:

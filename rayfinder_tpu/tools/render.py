@@ -15,6 +15,8 @@ import time
 
 import numpy as np
 
+from ..render.pathtracer import DEFAULT_ENGINE, ENGINES
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
@@ -40,14 +42,14 @@ def main(argv=None) -> int:
     parser.add_argument("--camera-look-at", type=float, nargs=3, default=None)
     parser.add_argument(
         "--engine",
-        choices=["reference", "wavefront", "pallas"],
-        default="pallas",
-        help="traversal engine: lockstep reference, XLA wavefront, or the "
-        "Pallas cluster-sweep kernels",
+        choices=ENGINES,
+        default=DEFAULT_ENGINE,
+        help="traversal engine: the per-ray BVH walk, the XLA wavefront "
+        "cluster walk, or the lockstep reference",
     )
     parser.add_argument(
         "--mesh", default=None, metavar="TILESxSAMPLES",
-        help="render across a multi-chip device mesh, e.g. 4x2 = 4-way "
+        help="render across a multi-device mesh, e.g. 4x2 = 4-way "
         "pixel-tile sharding x 2-way sample sharding (requires "
         "tiles*samples visible devices; spp must divide the samples axis)",
     )

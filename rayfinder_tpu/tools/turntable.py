@@ -15,6 +15,8 @@ import sys
 
 import numpy as np
 
+from ..render.pathtracer import DEFAULT_ENGINE, ENGINES
+
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
@@ -26,7 +28,7 @@ def main(argv=None) -> int:
     parser.add_argument("--spp", type=int, default=8)
     parser.add_argument("--bounces", type=int, default=2)
     parser.add_argument("--radius", type=float, default=2.5)
-    parser.add_argument("--engine", default="pallas")
+    parser.add_argument("--engine", choices=ENGINES, default=DEFAULT_ENGINE)
     args = parser.parse_args(argv)
 
     from ..render.camera import create_camera

@@ -1,16 +1,13 @@
 """Re-render the courtyard showcase images (procedural 254K-tri interior,
-full 4-bounce GI, pallas engine). Writes showcase/courtyard_{res}_{spp}.png.
+full 4-bounce GI, default engine). Writes showcase/courtyard_{res}_{spp}.png.
 
 Usage: python showcase/render_courtyard.py [1080p32|720p16|1080p8]
 """
-import os
 import pathlib
 import sys
 import time
 
 sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
-pathlib.Path(os.environ["JAX_COMPILATION_CACHE_DIR"]).mkdir(parents=True, exist_ok=True)
 
 import numpy as np
 
@@ -39,21 +36,14 @@ w, h, spp, name, textured, via_pt = CONFIGS[which]
 if via_pt:
     import tempfile
 
-    from rayfinder_tpu.io import PtScene, read_pt, write_pt
-    from rayfinder_tpu.tools.export_glb import export_flattened_glb
+    from rayfinder_tpu.tools.export_glb import device_scene_via_pt
 
     flat, textures = courtyard_scene(26, textured=textured)
-    tmp = pathlib.Path(tempfile.mkdtemp())
-    glb, pt = tmp / "courtyard.glb", tmp / "courtyard.pt"
     t0 = time.time()
-    export_flattened_glb(flat, textures, glb)
-    print(f"exported {glb} ({glb.stat().st_size/1e6:.1f} MB) in {time.time()-t0:.0f}s")
-    t0 = time.time()
-    write_pt(PtScene.from_gltf(glb), pt)
-    print(f"packed {pt} ({pt.stat().st_size/1e6:.1f} MB) in {time.time()-t0:.0f}s "
-          "(gltf load + BVH build + serialize)")
-    scene = read_pt(pt).to_device_scene()
-    print("tris:", scene.num_triangles)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = device_scene_via_pt(flat, textures, tmp)
+    print(f"GLB -> .pt -> device scene in {time.time()-t0:.0f}s; "
+          f"tris: {scene.num_triangles}")
 else:
     flat, textures = courtyard_scene(26, textured=textured)
     print("tris:", flat.positions.shape[0])

@@ -1,4 +1,4 @@
-"""Regenerate every golden image in this directory.
+"""Regenerate every golden in this directory, on the CPU.
 
 Run from the repo root after an INTENTIONAL behavior change, then review the
 diffs visually before committing:
@@ -7,20 +7,19 @@ diffs visually before committing:
 
 Each golden pins one user-visible pipeline (the reference validates these
 visually, SURVEY.md §4; here they are automated with RMSE budgets in
-tests/test_goldens.py).
+tests/test_goldens.py). The small open scene is generated from its seed and
+loaded through the GLB path, as the test fixtures do.
 """
 
+import os
 import pathlib
 import sys
+import tempfile
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
-
-import jax
-
-jax.config.update("jax_platforms", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 
 GOLDENS = pathlib.Path(__file__).resolve().parent
-DUCK = "/root/reference/assets/Duck.glb"
 
 
 def main() -> None:
@@ -28,21 +27,24 @@ def main() -> None:
     from rayfinder_tpu.render.deferred import DeferredRenderer
     from rayfinder_tpu.render.pathtracer import SamplingParams, render_image
     from rayfinder_tpu.render.scene import build_device_scene, load_device_scene
-    from rayfinder_tpu.scene.procedural import courtyard_scene
+    from rayfinder_tpu.scene.procedural import courtyard_scene, write_small_open_glb
     from rayfinder_tpu.sky.model import sky_state_from_ui
     from rayfinder_tpu.tools.bvh_visualizer import visualize
     from rayfinder_tpu.tools.sky_demo import render_sky_dome
     from rayfinder_tpu.utils.image import write_png
 
-    duck = load_device_scene(DUCK)
-    dcam = create_camera([2.0, 1.5, 2.0], [0.1, 0.8, 0.0], 0.0, 1.0, 70.0, 64 / 48)
-    dsky = sky_state_from_ui(1.0, (1, 1, 1), 30.0, 0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        glb = write_small_open_glb(pathlib.Path(tmp) / "small_open.glb")
+        small = load_device_scene(glb)
+        write_png(GOLDENS / "bvh_heatmap_64x48.png", visualize(glb, width=64, height=48))
 
+    scam = create_camera([2.0, 1.5, 2.0], [0.1, 0.8, 0.0], 0.0, 1.0, 70.0, 64 / 48)
+    ssky = sky_state_from_ui(1.0, (1, 1, 1), 30.0, 0.0)
     img = render_image(
-        duck, dsky, dcam, width=64, height=48,
+        small, ssky, scam, width=64, height=48,
         sampling=SamplingParams(2, 2), exposure=0.25, engine="reference",
     )
-    write_png(GOLDENS / "duck_64x48_2spp.png", img)
+    write_png(GOLDENS / "small_64x48_2spp.png", img)
 
     flat, textures = courtyard_scene(4, textured=True)
     court = build_device_scene(flat, textures=textures)
@@ -54,128 +56,60 @@ def main() -> None:
     )
     write_png(GOLDENS / "courtyard_textured_64x48_2spp.png", img)
 
-    dr = DeferredRenderer(duck, 64, 48, engine="wavefront")
+    dr = DeferredRenderer(small, 64, 48, engine="wavefront")
     for _ in range(3):
-        out = dr.render(dcam, dsky, exposure=0.25)
-    write_png(GOLDENS / "duck_deferred_64x48_f3.png", out)
-    write_png(GOLDENS / "duck_deferred_debug_64x48.png", dr.render_debug(dcam))
+        out = dr.render(scam, ssky, exposure=0.25)
+    write_png(GOLDENS / "small_deferred_64x48_f3.png", out)
+    write_png(GOLDENS / "small_deferred_debug_64x48.png", dr.render_debug(scam))
 
     write_png(GOLDENS / "sky_dome_64.png", render_sky_dome(size=64))
-    write_png(GOLDENS / "bvh_heatmap_64x48.png", visualize(DUCK, width=64, height=48))
 
-    bake_grouped_sweep()
-    bake_flat_sweep()
+    bake_hit_sets(small)
     print("baked", len(list(GOLDENS.glob("*.png"))), "goldens")
 
 
-def bake_grouped_sweep() -> None:
-    """Pin the GROUPED big-scene sweeps' accepted-hit set (the production
-    path for the primary courtyard metric) on a multi-super scene. The
-    round-2 judge flagged that this code path had no CI-visible golden —
-    only grouped-vs-flat agreement, which misses a semantic change that
-    lands in BOTH paths. Exact t/tri/occ equality is asserted
-    (tests/test_goldens.py); interpret-mode determinism makes that stable.
-    Bakes with the DEFAULT env (prebuilt path)."""
-    import os
-
-    import jax.numpy as jnp
+def hit_set_rays(name: str):
+    """The pinned rays of a hit-set golden: 256 rays per scene, from seeds."""
     import numpy as np
 
-    from rayfinder_tpu.ops import pallas_walk as pw
-    from rayfinder_tpu.render.scene import build_device_scene
-    from rayfinder_tpu.scene.procedural import courtyard_scene
-
-    flat, textures = courtyard_scene(8)
-    scene = build_device_scene(flat, textures=textures)
-    assert scene.cluster_tris.shape[0] > pw.SUPER_G  # multi-super
-
-    rng = np.random.default_rng(2024)
-    o = rng.uniform([-18, 1, -8], [18, 10, 8], size=(256, 3)).astype(np.float32)
-    d = rng.normal(size=(256, 3)).astype(np.float32)
+    if name == "small":
+        # Aimed at jittered points around the blob so most rays hit (random
+        # directions from the box almost all miss a small model).
+        rng = np.random.default_rng(2025)
+        o = rng.uniform([-2.5, -0.5, -2.5], [2.5, 3.0, 2.5], size=(256, 3))
+        d = np.asarray([0.0, 0.85, 0.0]) + 0.4 * rng.normal(size=(256, 3)) - o
+    else:
+        rng = np.random.default_rng(2024)
+        o = rng.uniform([-18, 1, -8], [18, 10, 8], size=(256, 3))
+        d = rng.normal(size=(256, 3))
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    t_max = jnp.float32(1e4)
-
-    os.environ["RAYFINDER_GROUPED"] = "1"
-    try:
-        (t_out, tri_out), n, _ = pw._common_call(
-            scene, jnp.asarray(o), jnp.asarray(d), t_max,
-            pw._make_closest_kernel, (jnp.float32, jnp.int32),
-        )
-        (occ,), _, _ = pw._common_call(
-            scene, jnp.asarray(o), jnp.asarray(d), t_max,
-            pw._make_any_kernel, (jnp.int32,),
-        )
-    finally:
-        del os.environ["RAYFINDER_GROUPED"]
-    np.savez(
-        GOLDENS / "grouped_courtyard8.npz",
-        origins=o,
-        directions=d,
-        t=np.asarray(t_out).reshape(-1)[:n],
-        tri=np.asarray(tri_out).reshape(-1)[:n],
-        occ=np.asarray(occ).reshape(-1)[:n],
-    )
+    return o.astype(np.float32), d.astype(np.float32)
 
 
-def bake_flat_sweep() -> None:
-    """Pin the FLAT sweeps' accepted-hit set on both of their static
-    specializations: the single-super fast path (Duck — the small-scene
-    production path behind the driver bench) and the multi-super flat walk
-    (courtyard with RAYFINDER_GROUPED=0). Same rationale as the grouped
-    golden: flat-vs-wavefront agreement alone misses a semantic change
-    that lands in both engines."""
-    import os
-
+def bake_hit_sets(small) -> None:
+    """Pin the accepted-hit set (closest t and triangle, any-hit occlusion)
+    of the lockstep oracle on the small scene and on the enclosed
+    courtyard(8). Every engine must reproduce them (tests/test_goldens.py):
+    engine-agreement tests alone miss a semantic change that lands in all
+    engines at once."""
     import jax.numpy as jnp
     import numpy as np
 
-    from rayfinder_tpu.ops import pallas_walk as pw
-    from rayfinder_tpu.render.scene import build_device_scene, load_device_scene
+    from rayfinder_tpu.render.scene import build_device_scene
+    from rayfinder_tpu.render.traverse import intersect_any, intersect_closest
     from rayfinder_tpu.scene.procedural import courtyard_scene
 
-    rng = np.random.default_rng(2025)
-    t_max = jnp.float32(1e4)
-
-    def run(scene, lo, hi, name, aim=None):
-        o = rng.uniform(lo, hi, size=(256, 3)).astype(np.float32)
-        if aim is None:
-            d = rng.normal(size=(256, 3)).astype(np.float32)
-        else:
-            # Aim at jittered points around `aim` so most rays hit (random
-            # directions from the box almost all miss a small model).
-            tgt = aim + 0.4 * rng.normal(size=(256, 3))
-            d = (tgt - o).astype(np.float32)
-        d /= np.linalg.norm(d, axis=-1, keepdims=True)
-        (t_out, tri_out), n, _ = pw._common_call(
-            scene, jnp.asarray(o), jnp.asarray(d), t_max,
-            pw._make_closest_kernel, (jnp.float32, jnp.int32),
-        )
-        (occ,), _, _ = pw._common_call(
-            scene, jnp.asarray(o), jnp.asarray(d), t_max,
-            pw._make_any_kernel, (jnp.int32,),
-        )
-        np.savez(
-            GOLDENS / name,
-            origins=o,
-            directions=d,
-            t=np.asarray(t_out).reshape(-1)[:n],
-            tri=np.asarray(tri_out).reshape(-1)[:n],
-            occ=np.asarray(occ).reshape(-1)[:n],
-        )
-
-    duck = load_device_scene(DUCK)
-    assert pw._grouped_mode(duck.cluster_tris.shape[0]) is False
-    run(duck, [-2.5, -0.5, -2.5], [2.5, 3.0, 2.5], "flat_duck.npz",
-        aim=np.array([0.0, 0.85, 0.0]))
-
     flat, textures = courtyard_scene(8)
-    court = build_device_scene(flat, textures=textures)
-    assert court.cluster_tris.shape[0] > pw.SUPER  # multi-super flat walk
-    os.environ["RAYFINDER_GROUPED"] = "0"
-    try:
-        run(court, [-18, 1, -8], [18, 10, 8], "flat_courtyard8.npz")
-    finally:
-        del os.environ["RAYFINDER_GROUPED"]
+    scenes = {"small": small, "courtyard8": build_device_scene(flat, textures=textures)}
+    t_max = jnp.float32(1e4)
+    for name, scene in scenes.items():
+        o, d = hit_set_rays(name)
+        _, t, tri, _ = intersect_closest(scene, jnp.asarray(o), jnp.asarray(d), t_max)
+        occ = intersect_any(scene, jnp.asarray(o), jnp.asarray(d), t_max)
+        np.savez(
+            GOLDENS / f"hits_{name}.npz", origins=o, directions=d,
+            t=np.asarray(t), tri=np.asarray(tri), occ=np.asarray(occ),
+        )
 
 
 if __name__ == "__main__":

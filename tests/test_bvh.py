@@ -11,8 +11,8 @@ from rayfinder_tpu.render.intersect import brute_force_closest_hit
 from rayfinder_tpu.render.traverse import intersect_closest
 
 
-def test_bvh_structure(duck_flat, duck_bvh):
-    bvh = duck_bvh
+def test_bvh_structure(small_flat, small_bvh):
+    bvh = small_bvh
     n = bvh.num_nodes
     leaf = bvh.triangle_count > 0
     interior = ~leaf
@@ -32,14 +32,14 @@ def test_bvh_structure(duck_flat, duck_bvh):
     counts = bvh.triangle_count[leaf][order]
     assert offsets[0] == 0
     assert np.all(offsets[1:] == offsets[:-1] + counts[:-1])
-    assert offsets[-1] + counts[-1] == duck_flat.num_triangles
+    assert offsets[-1] + counts[-1] == small_flat.num_triangles
 
     # The reorder map is a permutation.
-    assert sorted(bvh.triangle_indices.tolist()) == list(range(duck_flat.num_triangles))
+    assert sorted(bvh.triangle_indices.tolist()) == list(range(small_flat.num_triangles))
 
 
-def test_child_aabbs_inside_parent(duck_bvh):
-    bvh = duck_bvh
+def test_child_aabbs_inside_parent(small_bvh):
+    bvh = small_bvh
     interior = np.where(bvh.triangle_count == 0)[0]
     first = interior + 1
     second = bvh.second_child_offset[interior]
@@ -49,9 +49,9 @@ def test_child_aabbs_inside_parent(duck_bvh):
         assert np.all(bvh.aabb_max[child] <= bvh.aabb_max[interior] + eps)
 
 
-def test_leaf_aabbs_contain_triangles(duck_flat, duck_bvh):
-    bvh = duck_bvh
-    tris = reorder_attributes(duck_flat.positions, bvh.triangle_indices)
+def test_leaf_aabbs_contain_triangles(small_flat, small_bvh):
+    bvh = small_bvh
+    tris = reorder_attributes(small_flat.positions, bvh.triangle_indices)
     leaf_idx = np.where(bvh.triangle_count > 0)[0]
     for li in leaf_idx[:: max(1, leaf_idx.size // 64)]:
         o, c = int(bvh.triangles_offset[li]), int(bvh.triangle_count[li])
@@ -77,12 +77,12 @@ def _camera_rays_for_oracle(bvh, width=64, height=64):
     return generate_camera_ray(camera, u, v)
 
 
-def test_traversal_matches_brute_force_oracle(duck_flat, duck_bvh):
+def test_traversal_matches_brute_force_oracle(small_flat, small_bvh):
     """Keystone oracle (src/tests/bvh.cpp:34-101): BVH traversal and the
     all-triangles reference must agree on hit/miss and hit distance for a
     64x64 grid of camera rays."""
-    bvh = duck_bvh
-    tris = reorder_attributes(duck_flat.positions, bvh.triangle_indices)
+    bvh = small_bvh
+    tris = reorder_attributes(small_flat.positions, bvh.triangle_indices)
     origin, direction = _camera_rays_for_oracle(bvh)
 
     tris_j = jnp.asarray(tris)
@@ -92,12 +92,12 @@ def test_traversal_matches_brute_force_oracle(duck_flat, duck_bvh):
     from rayfinder_tpu.render.scene import build_device_scene
     from rayfinder_tpu.scene import FlattenedScene
 
-    scene = build_device_scene(duck_flat, bvh=bvh)
+    scene = build_device_scene(small_flat, bvh=bvh)
     hit, t, tri_idx, visited = intersect_closest(scene, origin, direction, t_max)
 
     bf_hit = np.asarray(bf_hit)
     hit = np.asarray(hit)
-    assert np.any(hit), "camera should see the duck"
+    assert np.any(hit), "camera should see the blob"
     np.testing.assert_array_equal(hit, bf_hit)
     np.testing.assert_allclose(
         np.asarray(t)[hit], np.asarray(bf_t)[bf_hit], rtol=1e-5, atol=1e-6

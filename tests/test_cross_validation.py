@@ -223,14 +223,14 @@ def _assert_pt_bytes_interop(binary, scene, path):
     )
 
 
-def test_pt_bytes_interop_duck(pt_roundtrip, tmp_path):
+def test_pt_bytes_interop_small(pt_roundtrip, small_glb, tmp_path):
     """Byte-level PTFORMAT3 interop: the reference's own deserialize() accepts
     our writer's file (its NLRS_ASSERTs abort on any structural mismatch) and
     its serialize() reproduces the bytes exactly."""
     from rayfinder_tpu.io import PtScene
 
-    scene = PtScene.from_gltf("/root/reference/assets/Duck.glb")
-    _assert_pt_bytes_interop(pt_roundtrip, scene, tmp_path / "duck.pt")
+    scene = PtScene.from_gltf(small_glb)
+    _assert_pt_bytes_interop(pt_roundtrip, scene, tmp_path / "small.pt")
 
 
 def test_pt_bytes_interop_multimesh(pt_roundtrip, tmp_path):

@@ -2,8 +2,8 @@
 non-uniform-scale normal matrices, texture/factor dedup, shared meshes,
 glb -> .pt -> device scene -> render with engine agreement.
 
-Duck.glb (one mesh, one texture, trivial hierarchy) never exercised these
-loader paths (reference: src/common/gltf_model.cpp:266-465); the generated
+A single-mesh, single-texture asset with a trivial hierarchy never exercises
+these loader paths (reference: src/common/gltf_model.cpp:266-465); the generated
 GLB (rayfinder_tpu/tools/make_test_glb.py) does.
 """
 

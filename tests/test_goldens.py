@@ -20,8 +20,12 @@ def _golden(name):
     return read_png(GOLDENS / name).astype(np.float32) / 255.0
 
 
-def test_duck_render_matches_golden(duck_device_scene):
-    """Duck 64x48 @ 2spp/2bounce, reference engine, deterministic noise."""
+@pytest.mark.parametrize(
+    "engine, budget", [("reference", 5e-3), ("walk", 5e-3), ("wavefront", 5e-3)]
+)
+def test_small_render_matches_golden(small_device_scene, engine, budget):
+    """Small open scene 64x48 @ 2spp/2bounce, deterministic noise: every
+    engine lands on the golden baked with the lockstep oracle."""
     from rayfinder_tpu.render.camera import create_camera
     from rayfinder_tpu.render.pathtracer import SamplingParams, render_image
     from rayfinder_tpu.sky.model import sky_state_from_ui
@@ -29,38 +33,16 @@ def test_duck_render_matches_golden(duck_device_scene):
     cam = create_camera([2.0, 1.5, 2.0], [0.1, 0.8, 0.0], 0.0, 1.0, 70.0, 64 / 48)
     sky = sky_state_from_ui(1.0, (1, 1, 1), 30.0, 0.0)
     img = render_image(
-        duck_device_scene,
+        small_device_scene,
         sky,
         cam,
         width=64,
         height=48,
         sampling=SamplingParams(2, 2),
         exposure=0.25,
-        engine="reference",
+        engine=engine,
     )
-    assert rmse(img, _golden("duck_64x48_2spp.png")) < 5e-3
-
-
-def test_duck_render_pallas_close_to_golden(duck_device_scene):
-    """The pallas engine must land within a hair of the reference engine
-    (identical sampling; only last-ulp t differences)."""
-    from rayfinder_tpu.render.camera import create_camera
-    from rayfinder_tpu.render.pathtracer import SamplingParams, render_image
-    from rayfinder_tpu.sky.model import sky_state_from_ui
-
-    cam = create_camera([2.0, 1.5, 2.0], [0.1, 0.8, 0.0], 0.0, 1.0, 70.0, 64 / 48)
-    sky = sky_state_from_ui(1.0, (1, 1, 1), 30.0, 0.0)
-    img = render_image(
-        duck_device_scene,
-        sky,
-        cam,
-        width=64,
-        height=48,
-        sampling=SamplingParams(2, 2),
-        exposure=0.25,
-        engine="pallas",
-    )
-    assert rmse(img, _golden("duck_64x48_2spp.png")) < 1e-2
+    assert rmse(img, _golden("small_64x48_2spp.png")) < budget
 
 
 def test_sky_dome_matches_golden():
@@ -70,11 +52,11 @@ def test_sky_dome_matches_golden():
     assert rmse(dome, _golden("sky_dome_64.png")) < 5e-3
 
 
-def test_bvh_heatmap_matches_golden():
+def test_bvh_heatmap_matches_golden(small_glb):
     """Node-visit counts are integers: the heatmap must match exactly."""
     from rayfinder_tpu.tools.bvh_visualizer import visualize
 
-    heat = visualize("/root/reference/assets/Duck.glb", width=64, height=48)
+    heat = visualize(small_glb, width=64, height=48)
     np.testing.assert_array_equal(heat, read_png(GOLDENS / "bvh_heatmap_64x48.png"))
 
 
@@ -117,136 +99,55 @@ def test_textured_courtyard_matches_golden():
     assert rmse(img, _golden("courtyard_textured_64x48_2spp.png")) < 5e-3
 
 
-def test_deferred_renderer_matches_golden(duck_device_scene):
+def test_deferred_renderer_matches_golden(small_device_scene):
     """DeferredRenderer output pinned: 3 TAA frames (gbuffer->lighting->
-    resolve) and the debug triptych, Duck 64x48, wavefront engine."""
+    resolve) and the debug triptych, small scene 64x48, wavefront engine."""
     from rayfinder_tpu.render.camera import create_camera
     from rayfinder_tpu.render.deferred import DeferredRenderer
     from rayfinder_tpu.sky.model import sky_state_from_ui
 
     cam = create_camera([2.0, 1.5, 2.0], [0.1, 0.8, 0.0], 0.0, 1.0, 70.0, 64 / 48)
     sky = sky_state_from_ui(1.0, (1, 1, 1), 30.0, 0.0)
-    dr = DeferredRenderer(duck_device_scene, 64, 48, engine="wavefront")
+    dr = DeferredRenderer(small_device_scene, 64, 48, engine="wavefront")
     for _ in range(3):
         out = dr.render(cam, sky, exposure=0.25)
-    assert rmse(out, _golden("duck_deferred_64x48_f3.png")) < 5e-3
+    assert rmse(out, _golden("small_deferred_64x48_f3.png")) < 5e-3
     debug = dr.render_debug(cam)
-    assert rmse(debug, _golden("duck_deferred_debug_64x48.png")) < 5e-3
+    assert rmse(debug, _golden("small_deferred_debug_64x48.png")) < 5e-3
 
 
-def test_grouped_sweep_golden():
-    """The GROUPED sweeps (the production big-scene path behind the
-    primary courtyard metric) must reproduce the pinned accepted-hit set
-    EXACTLY — red if the grouped semantics change at all, even when
-    grouped-vs-flat agreement would still pass because both moved."""
-    import jax.numpy as jnp
-
-    from rayfinder_tpu.ops import pallas_walk as pw
-    from rayfinder_tpu.render.scene import build_device_scene
-    from rayfinder_tpu.scene.procedural import courtyard_scene
-
-    data = np.load(GOLDENS / "grouped_courtyard8.npz")
-    flat, textures = courtyard_scene(8)
-    scene = build_device_scene(flat, textures=textures)
-    assert scene.cluster_tris.shape[0] > pw.SUPER_G
-
-    t_max = jnp.float32(1e4)
-    o = jnp.asarray(data["origins"])
-    d = jnp.asarray(data["directions"])
-    import os
-
-    os.environ["RAYFINDER_GROUPED"] = "1"
-    try:
-        (t_out, tri_out), n, _ = pw._common_call(
-            scene, o, d, t_max, pw._make_closest_kernel,
-            (jnp.float32, jnp.int32),
-        )
-        (occ,), _, _ = pw._common_call(
-            scene, o, d, t_max, pw._make_any_kernel, (jnp.int32,)
-        )
-    finally:
-        del os.environ["RAYFINDER_GROUPED"]
-
-    np.testing.assert_array_equal(
-        np.asarray(tri_out).reshape(-1)[:n], data["tri"]
-    )
-    np.testing.assert_allclose(
-        np.asarray(t_out).reshape(-1)[:n], data["t"], rtol=0, atol=0
-    )
-    np.testing.assert_array_equal(
-        np.asarray(occ).reshape(-1)[:n], data["occ"]
-    )
-
-
-def _assert_sweep_matches(scene, data, env=None):
-    import os
-
-    import jax.numpy as jnp
-
-    from rayfinder_tpu.ops import pallas_walk as pw
-
-    t_max = jnp.float32(1e4)
-    o = jnp.asarray(data["origins"])
-    d = jnp.asarray(data["directions"])
-    saved = {k: os.environ.get(k) for k in (env or {})}
-    os.environ.update(env or {})
-    try:
-        (t_out, tri_out), n, _ = pw._common_call(
-            scene, o, d, t_max, pw._make_closest_kernel,
-            (jnp.float32, jnp.int32),
-        )
-        (occ,), _, _ = pw._common_call(
-            scene, o, d, t_max, pw._make_any_kernel, (jnp.int32,)
-        )
-    finally:
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
-    np.testing.assert_array_equal(
-        np.asarray(tri_out).reshape(-1)[:n], data["tri"]
-    )
-    np.testing.assert_allclose(
-        np.asarray(t_out).reshape(-1)[:n], data["t"], rtol=0, atol=0
-    )
-    np.testing.assert_array_equal(
-        np.asarray(occ).reshape(-1)[:n], data["occ"]
-    )
-
-
-def test_flat_sweep_golden_single_super(duck_device_scene):
-    """The FLAT sweeps' single-super fast path (the small-scene production
-    path behind the driver Duck bench) must reproduce the pinned
-    accepted-hit set EXACTLY — red if the flat semantics change even when
-    flat-vs-wavefront agreement would still pass because both moved."""
-    from rayfinder_tpu.ops import pallas_walk as pw
-
-    assert pw._grouped_mode(duck_device_scene.cluster_tris.shape[0]) is False
-    data = np.load(GOLDENS / "flat_duck.npz")
-    _assert_sweep_matches(duck_device_scene, data)
-
-
-def test_flat_sweep_golden_multi_super():
-    """The FLAT multi-super walk (super selection loop + per-visit DMA)
-    pinned exactly on a courtyard-scale scene (RAYFINDER_GROUPED=0)."""
-    from rayfinder_tpu.ops import pallas_walk as pw
+@pytest.fixture(scope="module")
+def courtyard8():
     from rayfinder_tpu.render.scene import build_device_scene
     from rayfinder_tpu.scene.procedural import courtyard_scene
 
     flat, textures = courtyard_scene(8)
-    scene = build_device_scene(flat, textures=textures)
-    assert scene.cluster_tris.shape[0] > pw.SUPER
-    data = np.load(GOLDENS / "flat_courtyard8.npz")
-    _assert_sweep_matches(scene, data, env={"RAYFINDER_GROUPED": "0"})
+    return build_device_scene(flat, textures=textures)
 
 
-def test_flat_sweep_golden_pipelined(duck_device_scene, monkeypatch):
-    """RAYFINDER_PIPE_SEL=1 (stale-bound pipelined selection) must be
-    hit-for-hit identical to the default sweep: accepts are guarded by the
-    at-test-time bound, so pipelining may only waste a guarded iteration."""
-    from rayfinder_tpu.ops import pallas_walk as pw
+@pytest.mark.parametrize("engine", ["walk", "wavefront", "reference"])
+@pytest.mark.parametrize("name", ["small", "courtyard8"])
+def test_hit_set_golden(name, engine, request):
+    """Every engine reproduces the pinned accepted-hit set of the lockstep
+    oracle (tests/goldens/bake.py: closest triangle and any-hit occlusion
+    exactly, t to a few float32 ulps, 256 rays) on the small open scene and
+    on the enclosed courtyard(8) — red if traversal semantics change, even
+    in a way that lands in all engines at once and keeps them agreeing. The
+    t budget covers rounding only: the compilers may order or contract the
+    Möller-Trumbore arithmetic differently."""
+    import jax.numpy as jnp
 
-    monkeypatch.setattr(pw, "_PIPE_SEL", True)
-    data = np.load(GOLDENS / "flat_duck.npz")
-    _assert_sweep_matches(duck_device_scene, data)
+    from rayfinder_tpu.render.pathtracer import get_engine
+
+    scene = request.getfixturevalue(
+        "small_device_scene" if name == "small" else "courtyard8"
+    )
+    data = np.load(GOLDENS / f"hits_{name}.npz")
+    closest, any_hit = get_engine(engine)
+    o, d = jnp.asarray(data["origins"]), jnp.asarray(data["directions"])
+    t_max = jnp.float32(1e4)
+    hit, t, tri, _ = closest(scene, o, d, t_max)
+    np.testing.assert_array_equal(np.asarray(tri), data["tri"])
+    np.testing.assert_array_equal(np.asarray(hit), data["tri"] >= 0)
+    np.testing.assert_allclose(np.asarray(t), data["t"], rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(np.asarray(any_hit(scene, o, d, t_max)), data["occ"])

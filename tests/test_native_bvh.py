@@ -21,9 +21,9 @@ def _assert_same(a, b):
     np.testing.assert_array_equal(a.triangle_indices, b.triangle_indices)
 
 
-def test_native_matches_python_on_duck(duck_flat, duck_bvh):
-    native = build_bvh_native(duck_flat.positions)
-    _assert_same(native, duck_bvh)
+def test_native_matches_python_on_small_scene(small_flat, small_bvh):
+    native = build_bvh_native(small_flat.positions)
+    _assert_same(native, small_bvh)
 
 
 def test_native_matches_python_on_random_soup(rng):

@@ -8,15 +8,15 @@ from rayfinder_tpu.io import PtScene, read_pt, write_pt
 
 
 @pytest.fixture(scope="module")
-def duck_pt(tmp_path_factory):
-    scene = PtScene.from_gltf("/root/reference/assets/Duck.glb")
-    path = tmp_path_factory.mktemp("pt") / "duck.pt"
+def small_pt(tmp_path_factory, small_glb):
+    scene = PtScene.from_gltf(small_glb)
+    path = tmp_path_factory.mktemp("pt") / "small.pt"
     write_pt(scene, path)
     return scene, path
 
 
-def test_roundtrip_arrays_equal(duck_pt):
-    scene, path = duck_pt
+def test_roundtrip_arrays_equal(small_pt):
+    scene, path = small_pt
     loaded = read_pt(path)
 
     np.testing.assert_array_equal(loaded.bvh.aabb_min, scene.bvh.aabb_min)
@@ -50,15 +50,15 @@ def test_roundtrip_arrays_equal(duck_pt):
         np.testing.assert_array_equal(a.pixels, b.pixels)
 
 
-def test_vertex_positions_homogeneous(duck_pt):
-    scene, _ = duck_pt
+def test_vertex_positions_homogeneous(small_pt):
+    scene, _ = small_pt
     # vec4 packing: positions w=1, normals w=0 (pt_format.cpp:115-128).
     assert np.all(scene.vertex_positions[:, 3] == 1.0)
     assert np.all(scene.vertex_normals[:, 3] == 0.0)
 
 
-def test_version_mismatch_error(tmp_path, duck_pt):
-    _, path = duck_pt
+def test_version_mismatch_error(tmp_path, small_pt):
+    _, path = small_pt
     data = bytearray(path.read_bytes())
     data[: len(b"PTFORMAT2")] = b"PTFORMAT2"
     bad = tmp_path / "old.pt"
@@ -74,8 +74,8 @@ def test_invalid_format_error(tmp_path):
         read_pt(bad)
 
 
-def test_device_scene_from_pt(duck_pt, duck_flat):
-    scene, path = duck_pt
+def test_device_scene_from_pt(small_pt, small_flat):
+    scene, path = small_pt
     device = read_pt(path).to_device_scene()
-    assert device.num_triangles == duck_flat.num_triangles
+    assert device.num_triangles == small_flat.num_triangles
     assert device.num_nodes == scene.bvh.num_nodes

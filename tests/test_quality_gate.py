@@ -1,46 +1,28 @@
-"""Showcase-scale quality gate: the production (pallas) pipeline's
-full-resolution renders must match the wavefront-engine goldens
-(tools/make_quality_goldens.py) to RMSE < 1e-3 (BASELINE north star).
+"""Showcase-scale quality gate: the default engine's full-resolution
+courtyard render must match the wavefront-engine golden
+(tools/make_quality_goldens.py) to RMSE < 1e-3.
 
-The render cost is real (Duck 800x600 @128spp), so the test runs only on
-TPU; CI on CPU exercises the identical comparison logic at thumbnail scale
-through tests/test_goldens.py. bench.py runs this same gate on every
-driver round (quality_rmse in its JSON line)."""
+The render is real work (254K triangles, 512x512 @ 32spp), so the test runs
+on the card only; on the CPU the thumbnail goldens (tests/test_goldens.py)
+exercise the same comparison. chip_smoke.py runs it with `pytest -m gpu`."""
 
 import pathlib
+import sys
 
 import numpy as np
 import pytest
 
-GOLDEN_DIR = pathlib.Path(__file__).parent / "goldens"
 _BUDGET = 1e-3
 
 
-def _tpu_available():
-    import jax
-
-    return jax.default_backend() == "tpu"
-
-
-@pytest.mark.parametrize("name", ["duck", "courtyard"])
-def test_full_scale_rmse(name):
-    import jax
-
-    if jax.default_backend() != "tpu":
-        pytest.skip("full-scale render needs the TPU (CPU covers thumbnails)")
-    import sys
-
+@pytest.mark.gpu
+def test_full_scale_rmse(gpu):
     sys.path.insert(0, str(pathlib.Path(__file__).parents[1]))
-    from tools.make_quality_goldens import (courtyard_config, duck_config,
-                                            quality_image)
+    from rayfinder_tpu.render.pathtracer import DEFAULT_ENGINE
+    from tools.make_quality_goldens import COURTYARD_GOLDEN, courtyard_config, quality_image
 
-    cfg = {"duck": duck_config, "courtyard": courtyard_config}[name]
-    scene, sky, camera, kw = cfg()
-    path = (GOLDEN_DIR /
-            f"quality_{name}_{kw['width']}x{kw['height']}_{2*kw['num_frames']}spp.npz")
-    if not path.exists():
-        pytest.skip(f"golden missing — run tools/make_quality_goldens.py ({path})")
-    golden = np.load(path)["image"].astype(np.float32)
-    img = quality_image(scene, sky, camera, engine="pallas", **kw)
+    scene, sky, camera, kw = courtyard_config()
+    golden = np.load(COURTYARD_GOLDEN)["image"].astype(np.float32)
+    img = quality_image(scene, sky, camera, engine=DEFAULT_ENGINE, **kw)
     rmse = float(np.sqrt(np.mean((img - golden) ** 2)))
-    assert rmse < _BUDGET, f"{name} drifted: RMSE {rmse:.2e} >= {_BUDGET}"
+    assert rmse < _BUDGET, f"courtyard drifted: RMSE {rmse:.2e} >= {_BUDGET}"

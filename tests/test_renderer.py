@@ -19,8 +19,8 @@ def params():
     )
 
 
-def test_progressive_accumulation(duck_device_scene, params):
-    r = Renderer(duck_device_scene, params, engine="reference")
+def test_progressive_accumulation(small_device_scene, params):
+    r = Renderer(small_device_scene, params, engine="reference")
     assert r.render_progress_percentage() == 0.0
     r.render()
     assert r.accumulated_sample_count == 1
@@ -37,8 +37,8 @@ def test_progressive_accumulation(duck_device_scene, params):
     assert r.average_render_pass_duration_ms() > 0.0
 
 
-def test_param_change_resets_accumulation(duck_device_scene, params):
-    r = Renderer(duck_device_scene, params, engine="reference")
+def test_param_change_resets_accumulation(small_device_scene, params):
+    r = Renderer(small_device_scene, params, engine="reference")
     r.render()
     assert r.accumulated_sample_count == 1
     # Same params: no reset (reference_path_tracer.cpp:557-563).
@@ -50,8 +50,8 @@ def test_param_change_resets_accumulation(duck_device_scene, params):
     assert r.frame_count == 1
 
 
-def test_deferred_renderer_frames(duck_device_scene, params):
-    d = DeferredRenderer(duck_device_scene, width=16, height=12, engine="reference")
+def test_deferred_renderer_frames(small_device_scene, params):
+    d = DeferredRenderer(small_device_scene, width=16, height=12, engine="reference")
     cam = params.camera
     sky = Sky().state()
     img0 = d.render(cam, sky, exposure=0.25)
@@ -68,7 +68,7 @@ def test_deferred_renderer_frames(duck_device_scene, params):
     assert np.isfinite(debug).all()
 
 
-def test_deferred_sky_includes_sun(duck_device_scene):
+def test_deferred_sky_includes_sun(small_device_scene):
     """Lighting-pass miss branch adds the solar disk (lighting_pass.wgsl:203-236),
     unlike the path tracer's miss branch."""
     from rayfinder_tpu.render.deferred import gbuffer_pass, lighting_pass
@@ -77,17 +77,17 @@ def test_deferred_sky_includes_sun(duck_device_scene):
     # Camera staring straight at the sun (zenith 30°, azimuth 0).
     sun = Sky().state()
     sun_dir = np.asarray(sun.sun_direction, np.float64)
-    origin = np.asarray([0.0, 50.0, 0.0])  # far above the duck: all rays miss
+    origin = np.asarray([0.0, 50.0, 0.0])  # far above the scene: all rays miss
     cam = create_camera(origin, origin + sun_dir, 0.0, 1.0, 10.0, 1.0)
 
     # Odd dimensions put the center pixel exactly at (u, v) = (0.5, 0.5), so
     # its ray points straight into the 0.255-degree solar disk.
     gbuf = gbuffer_pass(
-        duck_device_scene, cam, jnp.int32(0), width=9, height=9, engine="reference"
+        small_device_scene, cam, jnp.int32(0), width=9, height=9, engine="reference"
     )
     sample = np.asarray(
         lighting_pass(
-            duck_device_scene, sun, gbuf, jnp.int32(0), width=9, height=9, engine="reference"
+            small_device_scene, sun, gbuf, jnp.int32(0), width=9, height=9, engine="reference"
         )
     )
     # The center pixel looks into the solar disk: radiance must include the
@@ -95,14 +95,14 @@ def test_deferred_sky_includes_sun(duck_device_scene):
     assert sample.max() > 1e4
 
 
-def test_checkpoint_roundtrip(duck_device_scene, params, tmp_path):
-    r = Renderer(duck_device_scene, params, engine="reference")
+def test_checkpoint_roundtrip(small_device_scene, params, tmp_path):
+    r = Renderer(small_device_scene, params, engine="reference")
     r.render(num_frames=2)
     ckpt = tmp_path / "render.ckpt.npz"
     r.save_checkpoint(ckpt)
     img_before = r.image()
 
-    r2 = Renderer(duck_device_scene, params, engine="reference")
+    r2 = Renderer(small_device_scene, params, engine="reference")
     r2.load_checkpoint(ckpt)
     assert r2.accumulated_sample_count == 2
     assert r2.frame_count == 2
@@ -110,12 +110,12 @@ def test_checkpoint_roundtrip(duck_device_scene, params, tmp_path):
 
     # Mismatched params must refuse to resume.
     import dataclasses as dc
-    r3 = Renderer(duck_device_scene, dc.replace(params, exposure=0.5), engine="reference")
+    r3 = Renderer(small_device_scene, dc.replace(params, exposure=0.5), engine="reference")
     with pytest.raises(ValueError, match="different render parameters"):
         r3.load_checkpoint(ckpt)
 
 
-def test_image_u8_matches_image(duck_device_scene):
+def test_image_u8_matches_image(small_device_scene):
     """The 8-bit display fetch must equal the exact f32 surface quantized
     (on-device tonemap+round vs host round of image())."""
     import numpy as np
@@ -129,7 +129,7 @@ def test_image_u8_matches_image(duck_device_scene):
     params = rr.RenderParameters(width=64, height=48, camera=cam,
                                  sampling=rr.SamplingParams(2, 2),
                                  exposure=0.25)
-    r = rr.Renderer(duck_device_scene, params)
+    r = rr.Renderer(small_device_scene, params)
     r.render(2)
     f32 = r.image()
     u8 = r.image_u8()

@@ -77,9 +77,9 @@ def test_atlas_limit_enforced():
 
 
 def test_textured_courtyard_engines_agree():
-    """The multi-texture courtyard through the full path tracer: the pallas
-    engine's in-loop texture gathers must agree with the XLA wavefront
-    engine over all 14 atlas offsets."""
+    """The multi-texture courtyard through the full path tracer: the walk
+    engine's render, and so its texture gathers over all 14 atlas offsets,
+    must agree with the XLA wavefront engine's."""
     from rayfinder_tpu.render.camera import create_camera
     from rayfinder_tpu.render.pathtracer import accumulate_samples_regen
     from rayfinder_tpu.render.rng import blue_noise_tile
@@ -98,10 +98,10 @@ def test_textured_courtyard_engines_agree():
         scene, sky, cam, tile, jnp.int32(0),
         jnp.zeros((w * h, 3), jnp.float32), engine="wavefront", **kw,
     )
-    fused = accumulate_samples_regen(
+    walk = accumulate_samples_regen(
         scene, sky, cam, tile, jnp.int32(0),
-        jnp.zeros((w * h, 3), jnp.float32), engine="pallas", **kw,
+        jnp.zeros((w * h, 3), jnp.float32), engine="walk", **kw,
     )
     np.testing.assert_allclose(
-        np.asarray(fused), np.asarray(wave), rtol=2e-4, atol=1e-5
+        np.asarray(walk), np.asarray(wave), rtol=2e-4, atol=1e-5
     )

@@ -10,7 +10,7 @@ from rayfinder_tpu.render.fly_camera import (
 )
 
 
-def _duck_controller(scene, size=(64, 48)):
+def _small_controller(scene, size=(64, 48)):
     c = FlyCameraController(size)
     c.position = np.asarray([2.0, 1.5, 2.0], np.float32)
     c.look_at([0.1, 0.8, 0.0])
@@ -18,12 +18,12 @@ def _duck_controller(scene, size=(64, 48)):
     return c
 
 
-def test_pick_center_sets_focus_to_forward_projection(duck_device_scene):
+def test_pick_center_sets_focus_to_forward_projection(small_device_scene):
     """Picking the window center (ray straight down the camera forward axis
-    onto the duck) must set focus = dot(hit - position, forward) = hit t."""
-    c = _duck_controller(duck_device_scene)
+    onto the blob) must set focus = dot(hit - position, forward) = hit t."""
+    c = _small_controller(small_device_scene)
     before = c.focus_distance
-    focus = pick_focus_distance(duck_device_scene, c, 32.0, 24.0)
+    focus = pick_focus_distance(small_device_scene, c, 32.0, 24.0)
     assert focus is not None and focus == c.focus_distance != before
     # Independent oracle: brute-force nearest intersection along the ray.
     import jax.numpy as jnp
@@ -32,7 +32,7 @@ def test_pick_center_sets_focus_to_forward_projection(duck_device_scene):
     from rayfinder_tpu.render.intersect import ray_triangle
 
     o, d = generate_camera_ray(c.camera(), np.asarray([0.5]), np.asarray([0.5]))
-    tris = np.asarray(duck_device_scene.tri_positions)
+    tris = np.asarray(small_device_scene.tri_positions)
     hit, t, _, _ = ray_triangle(
         jnp.asarray(o), jnp.asarray(d),
         jnp.asarray(tris[:, 0]), jnp.asarray(tris[:, 1]), jnp.asarray(tris[:, 2]),
@@ -44,18 +44,18 @@ def test_pick_center_sets_focus_to_forward_projection(duck_device_scene):
     assert focus == pytest.approx(float(np.dot(p - c.position, forward)), rel=1e-5)
 
 
-def test_pick_miss_and_out_of_window_leave_focus(duck_device_scene):
-    c = _duck_controller(duck_device_scene)
+def test_pick_miss_and_out_of_window_leave_focus(small_device_scene):
+    c = _small_controller(small_device_scene)
     before = c.focus_distance
     # Top-left corner ray points at the sky.
-    assert pick_focus_distance(duck_device_scene, c, 0.0, 0.0) is None
+    assert pick_focus_distance(small_device_scene, c, 0.0, 0.0) is None
     # Out-of-window coordinates are rejected before tracing (main.cpp:207-210).
-    assert pick_focus_distance(duck_device_scene, c, -1.0, 10.0) is None
-    assert pick_focus_distance(duck_device_scene, c, 64.0, 10.0) is None
+    assert pick_focus_distance(small_device_scene, c, -1.0, 10.0) is None
+    assert pick_focus_distance(small_device_scene, c, 64.0, 10.0) is None
     assert c.focus_distance == before
 
 
-def test_viewer_session_scripted(duck_device_scene, tmp_path):
+def test_viewer_session_scripted(small_device_scene, tmp_path):
     """A scripted session: progressive PNG rewriting, camera motion resetting
     accumulation, pick wiring, and the live Mrays/s readout."""
     from rayfinder_tpu.render.renderer import Sky
@@ -64,7 +64,7 @@ def test_viewer_session_scripted(duck_device_scene, tmp_path):
 
     out = tmp_path / "view.png"
     s = ViewerSession(
-        duck_device_scene, out, width=64, height=48, spp=4, bounces=2,
+        small_device_scene, out, width=64, height=48, spp=4, bounces=2,
         sky=Sky(), exposure=0.25, engine="wavefront", batch=2,
     )
     s.controller.position = np.asarray([2.0, 1.5, 2.0], np.float32)
@@ -81,7 +81,7 @@ def test_viewer_session_scripted(duck_device_scene, tmp_path):
     s.handle("frames 1")
     assert s.renderer.accumulated_sample_count == 1
 
-    # Pick at the duck re-focuses; pick at the sky does not.
+    # Pick at the blob re-focuses; pick at the sky does not.
     before = s.controller.focus_distance
     s.handle("pick 32 24")
     assert s.controller.focus_distance != before
@@ -96,7 +96,7 @@ def test_viewer_session_scripted(duck_device_scene, tmp_path):
     assert not s.handle("quit")
 
 
-def test_viewer_renderer_modes(duck_device_scene, tmp_path):
+def test_viewer_renderer_modes(small_device_scene, tmp_path):
     """The ImGui renderer radio (main.cpp:235-247): pt <-> deferred <-> debug
     switching renders through the right pipeline and keeps writing the PNG."""
     from rayfinder_tpu.render.renderer import Sky
@@ -105,7 +105,7 @@ def test_viewer_renderer_modes(duck_device_scene, tmp_path):
 
     out = tmp_path / "view.png"
     s = ViewerSession(
-        duck_device_scene, out, width=48, height=36, spp=2, bounces=2,
+        small_device_scene, out, width=48, height=36, spp=2, bounces=2,
         sky=Sky(), exposure=0.25, engine="wavefront", batch=1,
     )
     s.controller.position = np.asarray([2.0, 1.5, 2.0], np.float32)
@@ -127,7 +127,7 @@ def test_viewer_renderer_modes(duck_device_scene, tmp_path):
     assert s.renderer.accumulated_sample_count == 2
 
 
-def test_viewer_deferred_taa_resets_on_move(duck_device_scene, tmp_path):
+def test_viewer_deferred_taa_resets_on_move(small_device_scene, tmp_path):
     """Camera motion must invalidate the deferred renderer's TAA history —
     the reference resets accumulation on any camera change; blending 90%
     stale-viewpoint history would ghost the old view. Also: `frames 0` in
@@ -137,7 +137,7 @@ def test_viewer_deferred_taa_resets_on_move(duck_device_scene, tmp_path):
 
     out = tmp_path / "view.png"
     s = ViewerSession(
-        duck_device_scene, out, width=48, height=36, spp=2, bounces=2,
+        small_device_scene, out, width=48, height=36, spp=2, bounces=2,
         sky=Sky(), exposure=0.25, engine="wavefront", batch=1,
     )
     s.controller.position = np.asarray([2.0, 1.5, 2.0], np.float32)

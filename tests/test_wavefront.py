@@ -28,8 +28,8 @@ def _camera_rays(scene, n=64):
     return generate_camera_ray(cam, u, v)
 
 
-def test_closest_matches_reference_on_camera_rays(duck_device_scene):
-    scene = duck_device_scene
+def test_closest_matches_reference_on_camera_rays(small_device_scene):
+    scene = small_device_scene
     o, d = _camera_rays(scene)
     t_max = jnp.float32(1e4)
 
@@ -49,8 +49,8 @@ def test_closest_matches_reference_on_camera_rays(duck_device_scene):
     assert tie_free.sum() >= 0.999 * hits.sum()
 
 
-def test_closest_matches_reference_on_random_rays(duck_device_scene, rng):
-    scene = duck_device_scene
+def test_closest_matches_reference_on_random_rays(small_device_scene, rng):
+    scene = small_device_scene
     lo = np.asarray(scene.bvh_aabb_min[0])
     hi = np.asarray(scene.bvh_aabb_max[0])
     n = 512
@@ -71,8 +71,8 @@ def test_closest_matches_reference_on_random_rays(duck_device_scene, rng):
     )
 
 
-def test_any_hit_matches_reference(duck_device_scene, rng):
-    scene = duck_device_scene
+def test_any_hit_matches_reference(small_device_scene, rng):
+    scene = small_device_scene
     lo = np.asarray(scene.bvh_aabb_min[0])
     hi = np.asarray(scene.bvh_aabb_max[0])
     n = 512
@@ -86,11 +86,11 @@ def test_any_hit_matches_reference(duck_device_scene, rng):
     np.testing.assert_array_equal(np.asarray(wf), np.asarray(ref))
 
 
-def test_cluster_tri_map_roundtrip(duck_device_scene):
+def test_cluster_tri_map_roundtrip(small_device_scene):
     """Clusters are treelet-aligned leaf-order ranges: every real slot of
     cluster c holds triangle start[c] + slot, every real triangle appears
     exactly once, and padded slots are degenerate (all-zero)."""
-    scene = duck_device_scene
+    scene = small_device_scene
     c, l = scene.cluster_tris.shape[:2]
     tri_map = np.asarray(scene.cluster_tri_map).reshape(c, l)
     start = np.asarray(scene.cluster_start)

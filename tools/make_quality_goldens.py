@@ -1,13 +1,13 @@
-"""Generate SHOWCASE-SCALE quality goldens with the XLA wavefront engine.
+"""Showcase-scale configurations, and the quality golden of the courtyard.
 
 The committed thumbnail goldens (tests/test_goldens.py, 64x48 @ 2spp) pin
-semantics but nothing pins image quality at real resolution. This renders
-the two driver-bench configurations with the WAVEFRONT engine — an
-independent traversal implementation that agrees tri-for-tri with the
-lockstep oracle (tests/test_wavefront.py) — and stores the tonemapped mean
-images as float16 NPZ goldens. bench.py RMSE-gates its own (pallas-engine)
-accumulations against these on every driver round; tests/test_quality_gate.py
-runs the same check standalone on TPU.
+semantics but nothing pins image quality at real resolution. This module
+holds the two smoke configurations that chip_smoke.py and bench.py render —
+the small open scene (800x600) and the 254K-triangle courtyard (512x512),
+both loaded through the production asset paths — and renders the
+courtyard's golden with the XLA wavefront engine, an independent traversal
+that agrees tri-for-tri with the lockstep oracle (tests/test_wavefront.py).
+The golden is the tonemapped mean image, stored as float16 NPZ.
 
 Budget: identical deterministic sample sequences (same blue-noise streams),
 so true engine agreement is at accumulation-order ulps (~1e-6); the f16
@@ -15,28 +15,26 @@ quantization adds ~1.4e-4 RMSE; the gate is 1e-3. Regenerate ONLY when the
 sampling sequence intentionally changes (rng streams, bounce logic), never
 to paper over a traversal/shading diff.
 
-Run ON TPU (wavefront Duck is ~1.7 Mrays/s; ~4 min total):
+Run on the GPU (the wavefront engine is slow on the CPU at this size):
     python -u tools/make_quality_goldens.py
 """
-import os
 import pathlib
 import sys
-
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.jax_cache")
+import tempfile
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 GOLDEN_DIR = pathlib.Path(__file__).resolve().parents[1] / "tests" / "goldens"
+COURTYARD_GOLDEN = GOLDEN_DIR / "quality_courtyard_512x512_32spp.npz"
 
 
 def quality_image(scene, sky, camera, *, width, height, num_frames, engine,
                   num_bounces=4, exposure=0.25):
-    """The bench children's exact accumulation (two num_frames steps), as a
-    tonemapped mean image — shared by golden generation and the bench gate."""
+    """Two num_frames regen steps with exact ray counting, as a tonemapped
+    mean image — shared by golden generation, chip_smoke.py and bench.py."""
     from rayfinder_tpu.render.pathtracer import accumulate_samples_regen
     from rayfinder_tpu.render.rng import blue_noise_tile
     from rayfinder_tpu.render.tonemap import tonemap
@@ -53,40 +51,45 @@ def quality_image(scene, sky, camera, *, width, height, num_frames, engine,
     return np.asarray(img, np.float32).reshape(height, width, 3)
 
 
-def duck_config():
+def small_config(width=800, height=600):
+    """The seeded small open scene, written as a GLB and loaded through
+    load_device_scene (the glTF path), with its camera and sky."""
     from rayfinder_tpu.render.camera import create_camera
     from rayfinder_tpu.render.scene import load_device_scene
+    from rayfinder_tpu.scene.procedural import write_small_open_glb
     from rayfinder_tpu.sky.model import sky_state_from_ui
 
-    scene = load_device_scene("/root/reference/assets/Duck.glb")
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = load_device_scene(write_small_open_glb(pathlib.Path(tmp) / "small.glb"))
     camera = create_camera([2.0, 1.5, 2.0], [0.1, 0.8, 0.0], 0.0, 1.0, 70.0,
-                           800 / 600)
+                           width / height)
     sky = sky_state_from_ui(1.0, (1.0, 1.0, 1.0), 30.0, 0.0)
-    return scene, sky, camera, dict(width=800, height=600, num_frames=64)
+    return scene, sky, camera, dict(width=width, height=height)
 
 
-def courtyard_config():
+def courtyard_config(width=512, height=512):
+    """The textured 254K-triangle courtyard through the production asset
+    path (GLB -> .pt -> device scene), with its camera and sky."""
     from rayfinder_tpu.render.camera import create_camera
-    from rayfinder_tpu.render.scene import build_device_scene
     from rayfinder_tpu.scene.procedural import courtyard_scene
     from rayfinder_tpu.sky.model import sky_state_from_ui
+    from rayfinder_tpu.tools.export_glb import device_scene_via_pt
 
     flat, textures = courtyard_scene(26, textured=True)
-    scene = build_device_scene(flat, textures=textures)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = device_scene_via_pt(flat, textures, tmp)
     camera = create_camera([-16.0, 5.0, 0.0], [12.0, 2.0, 0.0], 0.0, 1.0,
-                           70.0, 1.0)
+                           70.0, width / height)
     sky = sky_state_from_ui(2.5, (0.3, 0.3, 0.3), 35.0, 25.0)
-    return scene, sky, camera, dict(width=512, height=512, num_frames=16)
+    return scene, sky, camera, dict(width=width, height=height, num_frames=16)
 
 
 def main():
-    for name, cfg in (("duck", duck_config), ("courtyard", courtyard_config)):
-        scene, sky, camera, kw = cfg()
-        img = quality_image(scene, sky, camera, engine="wavefront", **kw)
-        out = GOLDEN_DIR / f"quality_{name}_{kw['width']}x{kw['height']}_{2*kw['num_frames']}spp.npz"
-        np.savez_compressed(out, image=img.astype(np.float16))
-        print(f"wrote {out} ({out.stat().st_size/1e6:.2f} MB, "
-              f"mean {img.mean():.4f})", flush=True)
+    scene, sky, camera, kw = courtyard_config()
+    img = quality_image(scene, sky, camera, engine="wavefront", **kw)
+    np.savez_compressed(COURTYARD_GOLDEN, image=img.astype(np.float16))
+    print(f"wrote {COURTYARD_GOLDEN} ({COURTYARD_GOLDEN.stat().st_size/1e6:.2f} MB, "
+          f"mean {img.mean():.4f})", flush=True)
 
 
 if __name__ == "__main__":
